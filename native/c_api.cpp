@@ -1,4 +1,4 @@
-// C ABI binding for openpose_tpu — the TPU-native analogue of the
+// C ABI binding for openpose_tpu — the analogue of the
 // reference's Unity plugin (src/openpose/unity/unityBinding.cpp:459-675),
 // which exposes _OPConfigure*/_OPRun/... as a flat C surface over its C++
 // core. Here the core is the JAX/XLA pipeline, reached through an embedded

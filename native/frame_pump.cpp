@@ -1,6 +1,6 @@
 // frame_pump: multi-threaded native frame loader + preprocessor.
 //
-// TPU-native counterpart of the reference's C++ producer + threading runtime
+// Counterpart of the reference's C++ producer + threading runtime
 // (src/openpose/producer/*, include/openpose/thread/threadManager.hpp): a
 // worker pool decodes images (file or in-memory JPEG), applies the
 // aspect-preserving resize (resizeFixedAspectRatio,
@@ -171,7 +171,7 @@ class FramePump {
         cv::warpAffine(img, resized, m, cv::Size(net_w_, net_h_),
                        (scale > 1. ? cv::INTER_CUBIC : cv::INTER_AREA),
                        cv::BORDER_CONSTANT, cv::Scalar(0, 0, 0));
-        // HWC uint8, NHWC stays TPU-native; normalization is on-device
+        // HWC uint8 (the device layout is NHWC); normalization is on-device
         res.data.assign(resized.data,
                         resized.data + (size_t)net_h_ * net_w_ * 3);
         res.ok = true;

@@ -1,3 +1,3 @@
-"""openpose_tpu: TPU-native multi-person pose estimation (OpenPose capabilities, JAX/XLA/Pallas)."""
+"""openpose_tpu: multi-person pose estimation in JAX (OpenPose capabilities)."""
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 The reference ships a Unity plugin exposing a C ABI over its C++ core
 (src/openpose/unity/unityBinding.cpp:459-675: _OPConfigure*, _OPRun, output
-via registered callback).  The TPU-native equivalent keeps the compute in
+via registered callback).  This equivalent keeps the compute in
 JAX/XLA and exposes the same kind of flat C surface through an embedded
 CPython layer: native/c_api.cpp resolves these functions by name and
 marshals images in / keypoints out as contiguous buffers.

@@ -1,6 +1,6 @@
 """Command-line demo: the reference `openpose.bin` flag surface
 (include/openpose/flags.hpp, examples/openpose/openpose.cpp) mapped to the
-TPU-native engine.
+JAX engine.
 
 Example:
     python -m openpose_tpu.cli --image_dir /path/imgs --write_json out/ \
@@ -20,7 +20,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="openpose_tpu",
-        description="TPU-native OpenPose: multi-person 2D/3D keypoints")
+        description="OpenPose in JAX: multi-person 2D/3D keypoints")
     # Input (flags.hpp producer section)
     p.add_argument("--image_dir", default="")
     p.add_argument("--video", default="")
@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="unsupported (Spinnaker SDK, flags.hpp:46)")
     p.add_argument("--num_gpu", type=int, default=-1,
                    help="number of devices for the batched mesh; -1 = all "
-                        "(flags.hpp num_gpu; devices = TPU chips here)")
+                        "(flags.hpp num_gpu)")
     p.add_argument("--num_gpu_start", type=int, default=0,
                    help="first device index (flags.hpp num_gpu_start)")
     p.add_argument("--frame_first", type=int, default=0)

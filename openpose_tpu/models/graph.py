@@ -2,15 +2,15 @@
 
 The reference runs these nets through Caffe (reference:
 src/openpose/net/netCaffe.cpp:213-262).  Here the whole graph is a pure JAX
-function over an NHWC activation dict: traced once per input shape, fused and
-tiled onto the MXU by XLA.  Layout notes:
+function over an NHWC activation dict: traced once per input shape and
+compiled by XLA (convolutions go to cuDNN on the GPU).  Layout notes:
 
-* Activations are NHWC (TPU-native); Caffe is NCHW.  Channel *order* inside
+* Activations are NHWC; Caffe is NCHW.  Channel *order* inside
   the C axis (BGR for the image, Caffe channel order for weights) is kept so
   converted caffemodel weights are drop-in.
 * Conv weights are HWIO; `convert_caffe_blobs` transposes Caffe's OIHW.
-* Compute dtype is configurable: bf16 gets full MXU rate (the default on TPU),
-  f32 is used in parity tests.  Accumulation is always f32 via
+* Compute dtype is configurable: bf16 (the inference default) runs on the
+  tensor cores; f32 is used in parity tests.  Accumulation is always f32 via
   `preferred_element_type`.
 * Caffe pooling uses ceil-mode output sizes; OpenPose inputs are multiples of
   16 so all three 2x2/s2 pools divide evenly, but the general case pads
@@ -100,13 +100,8 @@ def convert_caffe_blobs(
 
 def _conv(x: jax.Array, layer: LayerSpec, p: Dict[str, jax.Array],
           compute_dtype) -> jax.Array:
-    # NOTE on the input layer (cin=3, 15% of peak for VGG stage-1): two
-    # standard rewrites were implemented and MEASURED SLOWER than XLA's
-    # native conv on the v5e — im2col patches (2.86 ms/frame net vs 2.19
-    # baseline; HBM-bound on the materialized [B,H,W,27] patches) and
-    # space-to-depth with a phase-scattered 3x3 kernel (2.33 ms/frame; the
-    # depth-to-space shuffle of the 31 MB output eats the MXU gain).  The
-    # direct conv stays; docs/performance.md records the evidence.
+    # The input layer (cin=3) is a direct conv; im2col and space-to-depth
+    # rewrites are candidates not measured on the GPU (ROADMAP S8, PERF.md).
     w = p["w"].astype(compute_dtype)
     out = jax.lax.conv_general_dilated(
         x.astype(compute_dtype), w,

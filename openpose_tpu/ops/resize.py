@@ -1,9 +1,8 @@
-"""Resize ops as dense interpolation-matrix contractions (MXU-friendly).
+"""Resize ops as dense interpolation-matrix contractions.
 
-Interpolation on TPU is best expressed as two small matmuls per image —
+Interpolation is expressed as two small matmuls per image —
 ``out = W_h @ img @ W_w^T`` — instead of gather loops: the weights depend only
-on the (static) sizes, so we build them once in numpy and let the MXU do the
-work.  Three samplers are provided, matching the reference's three code paths:
+on the (static) sizes, so they are built once in numpy.  Three samplers are provided, matching the reference's three code paths:
 
 * ``upsample_merge``: the heatmap upsample + multi-scale average.  Semantics
   follow the reference CUDA kernels (Catmull-Rom cubic, half-pixel centers,
@@ -96,8 +95,9 @@ def _apply_matrices(x: jax.Array, mh: np.ndarray, mw: np.ndarray,
     """NHWC tensor resample: out[b,y,x,c] = sum_ij mh[y,i] x[b,i,j,c] mw[x,j].
 
     precision: pass jax.lax.Precision.HIGHEST for heatmap-path resampling.
-    The TPU MXU multiplies f32 operands in bf16 passes under DEFAULT
-    precision; on near-flat Gaussian tops the quantization makes adjacent
+    Under DEFAULT precision f32 operands may be multiplied at reduced
+    precision (TF32 on the GPU); on near-flat Gaussian tops the quantization
+    makes adjacent
     upsampled pixels exactly equal, and the strict `>` 3x3 NMS rule then
     sees a plateau and drops the peak entirely (observed: missing parts and
     ~1 px peak shifts on device vs the f32 oracle).  Image preprocessing

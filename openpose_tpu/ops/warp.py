@@ -47,10 +47,9 @@ def crop_affine_batch(image: jax.Array, transforms: jax.Array,
 
     The transform family is axis-aligned (pure scale + translate — mirrors
     are a negative sx), so the warp is SEPARABLE: one [out_h, H] row matrix
-    and one [out_w, W] column matrix per crop, contracted on the MXU.  The
-    4-tap gather formulation this replaces scalarized on TPU (~5 ms/crop —
-    it dominated the whole top-down stage); two batched matmuls are ~100x
-    cheaper and bit-equivalent (same taps, same zero border).
+    and one [out_w, W] column matrix per crop, as two batched matmuls,
+    bit-equivalent to the 4-tap gather formulation (same taps, same zero
+    border).
     """
     out_h, out_w = (out_size, out_size) if isinstance(out_size, int) \
         else out_size

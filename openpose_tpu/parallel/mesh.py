@@ -1,10 +1,10 @@
 """Device mesh + sharding rules for multi-chip execution.
 
 The reference scales by replicating the whole net per GPU and round-robining
-frames (SURVEY §2.2); the TPU-native design instead lays out one global mesh
+frames (SURVEY §2.2); this design instead lays out one global mesh
 with two axes:
 
-* ``data``  — frame batch (the throughput axis; rides ICI/DCN)
+* ``data``  — frame batch (the throughput axis)
 * ``model`` — conv output channels (tensor parallelism for the VGG+CPM
   stages; XLA GSPMD inserts the all-gathers/reduce-scatters)
 

@@ -1,6 +1,6 @@
 """Model-zoo parameters: part names, limb pairs, PAF map indices, thresholds.
 
-TPU-native re-derivation of the reference's model parameter tables
+Re-derivation of the reference's model parameter tables
 (reference: src/openpose/pose/poseParameters.cpp:7-757 and
 include/openpose/pose/poseParametersRender.hpp:16-115). Only the supported
 production models are included (BODY_25, COCO_18, MPI_15, MPI_15_4); the

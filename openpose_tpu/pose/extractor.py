@@ -102,18 +102,16 @@ class PoseExtractor:
                     from openpose_tpu.models import graph as _graph
                     sources.append(_graph.forward(params, model.spec, net_in,
                                                   compute_dtype))
-            # Only the part channels are upsampled/merged (NMS input); PAF
-            # channels are sampled analytically from the low-res sources.
-            merged_parts = resize.upsample_merge(
-                [s[..., :num_parts] for s in sources],
-                list(plan.scale_input_to_net), (target_h, target_w))
+            # Every channel to net resolution (the reference's
+            # resizeAndMerge): NMS reads the parts, PAF scoring the PAFs.
+            merged = resize.upsample_merge(
+                sources, list(plan.scale_input_to_net), (target_h, target_w))
+            merged_parts = merged[..., :num_parts]
             peaks = nms.nms(merged_parts, cp.nms_threshold,
                             max_peaks, offset=(nms_offset, nms_offset))
-            scores = paf.paf_scores_multiscale(
-                tuple(sources), tuple(plan.scale_input_to_net),
-                (target_h, target_w), peaks, pairs, map_idx,
-                cp.inter_threshold, cp.inter_min_above_threshold,
-                cp.nms_threshold)
+            scores = paf.paf_scores(
+                merged, peaks, pairs, map_idx, cp.inter_threshold,
+                cp.inter_min_above_threshold, cp.nms_threshold)
             # Low-res merged full tensor (parts+bkg+PAFs) for heatmap export:
             # average the low-res sources on the scale-0 grid (cheap).
             full_low = resize.upsample_merge(

@@ -8,7 +8,7 @@ refined candidate back to the original person (min average distance AND max
 rectangle-IoU must agree, with >= 75% of the original keypoint count), and
 replace the keypoints when the average distance is small enough.
 
-TPU-native re-design: the reference loops people, re-running the net once
+Batched re-design: the reference loops people, re-running the net once
 per ROI; here ALL eligible ROIs of a frame are cropped in one batched
 affine gather (ops/warp.crop_affine_batch) and decoded by ONE batched
 forward + post program per crop geometry — the same batching strategy as
@@ -200,13 +200,12 @@ def _decode_crops(extractor, crops: jax.Array, target_hw: Tuple[int, int]):
             out = graph.forward(params, model.spec,
                                 resize.normalize_vgg(x),
                                 extractor.compute_dtype)
-            merged = resize.upsample_merge([out[..., :num_parts]], [1.0],
-                                           (th, tw))
-            peaks = nms_ops.nms(merged, NMS_THRESHOLD_REFINED,
+            merged = resize.upsample_merge([out], [1.0], (th, tw))
+            peaks = nms_ops.nms(merged[..., :num_parts],
+                                NMS_THRESHOLD_REFINED,
                                 extractor.max_peaks, offset=(0.0, 0.0))
-            scores = paf_ops.paf_scores_multiscale(
-                (out,), (1.0,), (th, tw), peaks, pairs, map_idx,
-                INTER_THRESHOLD_REFINED,
+            scores = paf_ops.paf_scores(
+                merged, peaks, pairs, map_idx, INTER_THRESHOLD_REFINED,
                 extractor.connect.inter_min_above_threshold,
                 NMS_THRESHOLD_REFINED)
             return peaks, scores

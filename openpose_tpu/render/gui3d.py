@@ -2,7 +2,7 @@
 
 The reference uses OpenGL/FreeGLUT (src/openpose/gui/gui3D.cpp, compiled
 only WITH_3D_RENDERER).  Here: matplotlib 3-D rendering that works headless
-(render to image / file) or interactively, which fits TPU pods (no display).
+(render to image / file) or interactively, which fits display-less servers.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Asynchronous host pipeline: overlap frame IO, device compute, and output.
 
-TPU-native replacement for the reference's worker/queue thread graph
+Replacement for the reference's worker/queue thread graph
 (ThreadManager + WQueueOrderer etc., include/openpose/thread/, SURVEY §2.2):
 instead of one thread per worker, three stages connected by bounded queues —
 

@@ -1,7 +1,7 @@
 """Production throughput path: native decode -> batched device -> host tail.
 
 Combines the pieces into the serving pipeline the reference builds with its
-thread/queue graph (SURVEY §3.1), TPU-style:
+thread/queue graph (SURVEY §3.1), batched:
 
   NativeFramePump (C++ worker pool, ordered)  ->  fixed-size frame batches
   ->  ShardedPoseInference (one jitted program, data-parallel mesh)
@@ -43,7 +43,7 @@ class VideoRunner:
         self.decode_threads = decode_threads
         self.assembly_workers = assembly_workers
         # device batches in flight before the oldest is resolved; >2 hides
-        # the transfer latency of a remote (tunneled) device behind compute
+        # host<->device transfer latency behind compute
         self.max_in_flight = max(2, max_in_flight)
 
     def run_files(self, paths: List[str],

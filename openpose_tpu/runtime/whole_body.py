@@ -1,8 +1,8 @@
 """Whole-body (pose + face + both hands) over a sharded frame-batch.
 
 The reference replicates the full cascade per GPU and runs it per frame
-(configureThreadManager worker chain, wrapperAuxiliary.hpp:324-337); the
-TPU-native shape is three sharded device programs with host geometry
+(configureThreadManager worker chain, wrapperAuxiliary.hpp:324-337); here
+it is three sharded device programs with host geometry
 between them:
 
   frames [B, H, W, 3] uint8, sharded over the mesh data axis

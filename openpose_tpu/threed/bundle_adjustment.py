@@ -9,12 +9,12 @@ the camera extrinsics simultaneously,
 
 solved by Gauss-Newton with the classic **Schur complement**: the per-point
 3x3 Hessian blocks are eliminated analytically, leaving a small reduced
-camera system.  TPU mapping:
+camera system.  Device mapping:
 
 * points shard over the mesh `data` axis (`shard_map`);
 * each shard accumulates its contribution to the reduced camera Hessian/rhs;
 * one `psum` over the data axis assembles the global reduced system — the
-  only cross-device communication per iteration (rides ICI);
+  only cross-device communication per iteration;
 * the dense reduced solve (6V x 6V, V = #cameras, small) is replicated.
 
 Cameras are parameterized as se(3) twists around the initial extrinsics

@@ -1,6 +1,6 @@
 """Multi-view 3D triangulation: vmapped DLT + Gauss-Newton Huber refinement.
 
-TPU-native equivalent of PoseTriangulation
+JAX equivalent of PoseTriangulation
 (src/openpose/3d/poseTriangulation.cpp:9-120,
 poseTriangulationPrivate.cpp:119-281):
 

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow in JAX (device-friendly, static shapes).
 
-TPU-native replacement for the reference's hand-rolled CPU/CUDA pyramidal LK
+JAX replacement for the reference's hand-rolled CPU/CUDA pyramidal LK
 (src/openpose/tracking/pyramidalLK.{cpp,cu}: 3-level pyramid, 21x21 patches,
 2x2 normal-equation solve per keypoint).  Differences by design:
 

@@ -9,7 +9,7 @@ constant-velocity (acceleration-penalty) smoothness prior:
 
 Each keypoint dimension is an independent T-variable banded linear system;
 we batch-solve all (people x parts x 2) systems with one vmapped dense solve
-(T <= 128, tiny on the MXU).  Low-confidence detections (c=0) are inpainted
+(T <= 128, a tiny matmul).  Low-confidence detections (c=0) are inpainted
 by the prior — the LK-fill role of PersonTracker, but globally optimal over
 the window instead of frame-chained.
 """

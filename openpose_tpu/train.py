@@ -1,7 +1,7 @@
 """Training step for the pose CNNs (heatmap + PAF regression).
 
 The reference is inference-only (training lives in CMU's separate
-openpose_train repo), but a complete TPU framework must train: this module
+openpose_train repo), but a complete framework must train: this module
 implements the CPM/PAF training objective — L2 regression of predicted
 part-confidence maps and part-affinity fields against rendered targets
 (arXiv:1812.08008 §2) — as a jittable, shardable step.
@@ -109,14 +109,15 @@ def loss_fn(params, spec: NetSpec, images: jax.Array, targets: jax.Array,
 
 def make_train_step(spec: NetSpec, optimizer: optax.GradientTransformation,
                     compute_dtype=jnp.float32):
-    """compute_dtype defaults to f32 for TRAINING: under XLA's DEFAULT
-    precision the TPU MXU multiplies f32 conv operands in the same
-    single-pass bf16 as explicit bf16 inputs (same speed), while keeping
-    the autodiff graph dtype-consistent — conv_general_dilated's transpose
-    rejects a bf16 operand against the f32 cotangent produced by
-    preferred_element_type=f32.  Inference keeps bf16 activations (halves
-    HBM traffic on the memory-bound stride-1 head)."""
-    """Build a jittable (state, images, targets) -> (state, loss) step."""
+    """Build a jittable (state, images, targets) -> (state, loss) step.
+
+    compute_dtype defaults to f32 for TRAINING, which keeps the autodiff
+    graph dtype-consistent (conv_general_dilated's transpose rejects a bf16
+    operand against the f32 cotangent produced by
+    preferred_element_type=f32).  Under DEFAULT precision the GPU runs f32
+    convolutions in TF32, at half the bf16 tensor-core rate; a bf16
+    training step is not measured yet (ROADMAP S9).  Inference keeps bf16
+    activations."""
 
     def step(state: TrainState, images, targets):
         loss, grads = jax.value_and_grad(loss_fn)(

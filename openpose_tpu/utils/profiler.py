@@ -1,6 +1,5 @@
 """Keyed timers + averaged reports (reference Profiler,
-include/openpose/utilities/profiler.hpp:66-100, src 319 LoC) plus a
-speed-of-light accounting helper for device kernels.
+include/openpose/utilities/profiler.hpp:66-100, src 319 LoC).
 
 Device timing caveat: JAX dispatch is asynchronous — `timer_end` blocks on
 the given arrays (block_until_ready) when passed, mirroring the reference's
@@ -51,15 +50,6 @@ class Profiler:
     def averages_ms(self) -> Dict[str, float]:
         return {k: self._acc[k] / max(self._count[k], 1) * 1000.0
                 for k in self._acc}
-
-
-def speed_of_light_ms(flops: float, bytes_moved: float,
-                      peak_tflops: float = 197.0,
-                      hbm_gbps: float = 819.0) -> float:
-    """Roofline lower bound in ms (defaults: TPU v5e bf16 peak / HBM BW)."""
-    compute_ms = flops / (peak_tflops * 1e12) * 1e3
-    memory_ms = bytes_moved / (hbm_gbps * 1e9) * 1e3
-    return max(compute_ms, memory_ms)
 
 
 GLOBAL_PROFILER = Profiler()

@@ -2,10 +2,10 @@
 """Scaling analysis: collective structure of the compiled sharded programs.
 
 BASELINE.json asks for >=80% throughput scaling to >=2 hosts.  Data-parallel
-inference scaling on TPU is determined by the compiled program's cross-device
+inference scaling is determined by the compiled program's cross-device
 communication: a program with ZERO collectives is embarrassingly parallel and
-scales at ~100% modulo input feeding (each chip runs an identical independent
-shard; ICI is idle).  This script compiles the real sharded programs over an
+scales at ~100% modulo input feeding (each device runs an identical
+independent shard; the interconnect is idle).  This script compiles the real sharded programs over an
 8-device mesh and reports their collective op counts from the optimized HLO —
 the compile-time proof of the scaling property, independent of host hardware.
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-stage timing of the device pipeline on the real chip."""
+"""Per-stage timing of the device pipeline on the GPU."""
 import pathlib
 import sys
 
@@ -44,46 +44,26 @@ def main():
             p, model.spec, resize.normalize_vgg(x), jnp.bfloat16))
         out = timeit("forward (bf16)", fwd, model.params, images)
 
-        rsz = jax.jit(lambda o: resize.resize_bicubic(
-            o[..., :num_parts], (net_h, net_w)))
-        merged = timeit("resize_bicubic x8 (parts only)", rsz, out)
+        rsz = jax.jit(lambda o: resize.resize_bicubic(o, (net_h, net_w)))
+        merged = timeit("resize_bicubic x8 (all channels)", rsz, out)
 
-        nmsf = jax.jit(lambda m: nms.nms(m, 0.05, 127))
+        nmsf = jax.jit(lambda m: nms.nms(m[..., :num_parts], 0.05, 127))
         peaks = timeit("nms", nmsf, merged)
         counts = np.asarray(peaks)[:, :, 0, 0]
         print(f"  peak counts: max={counts.max():.0f} mean={counts.mean():.1f}")
 
-        paff = jax.jit(lambda o, pk: paf.paf_scores_multiscale(
-            (o,), (1.0,), (net_h, net_w), pk, pairs, map_idx, 0.05, 0.95, 0.05))
-        timeit("paf scores (tiered)", paff, out, peaks)
-
-        # Synthetic sparse peaks (typical frame: <= 8 people)
-        pk_small = np.zeros(np.asarray(peaks).shape, np.float32)
-        rng2 = np.random.RandomState(1)
-        for b in range(pk_small.shape[0]):
-            for part in range(pk_small.shape[1]):
-                cnt = rng2.randint(3, 9)
-                pk_small[b, part, 0, 0] = cnt
-                pk_small[b, part, 1:cnt + 1, 0] = rng2.uniform(2, net_w - 2, cnt)
-                pk_small[b, part, 1:cnt + 1, 1] = rng2.uniform(2, net_h - 2, cnt)
-                pk_small[b, part, 1:cnt + 1, 2] = rng2.uniform(0.1, 1, cnt)
-        timeit("paf scores (fast tier, 8ppl)", paff, out, jnp.asarray(pk_small))
-
-        paf_slow = jax.jit(lambda o, pk: paf.paf_scores_multiscale(
-            (o,), (1.0,), (net_h, net_w), pk, pairs, map_idx, 0.05, 0.95,
-            0.05, fast_peaks=0))
-        timeit("paf scores (full 127)", paf_slow, out, peaks)
+        paff = jax.jit(lambda m, pk: paf.paf_scores(
+            m, pk, pairs, map_idx, 0.05, 0.95, 0.05))
+        timeit("paf scores", paff, merged, peaks)
 
         full = jax.jit(lambda p, x: _full(p, x))
 
         def _full(p, x):
             o = graph.forward(p, model.spec, resize.normalize_vgg(x),
                               jnp.bfloat16)
-            m = resize.resize_bicubic(o[..., :num_parts], (net_h, net_w))
-            pk = nms.nms(m, 0.05, 127)
-            sc = paf.paf_scores_multiscale(
-                (o,), (1.0,), (net_h, net_w), pk, pairs, map_idx,
-                0.05, 0.95, 0.05)
+            m = resize.resize_bicubic(o, (net_h, net_w))
+            pk = nms.nms(m[..., :num_parts], 0.05, 127)
+            sc = paf.paf_scores(m, pk, pairs, map_idx, 0.05, 0.95, 0.05)
             return pk, sc
         timeit("FULL pipeline", full, model.params, images)
 

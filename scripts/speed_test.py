@@ -37,14 +37,13 @@ def main():
     f_net = jax.jit(lambda p, x: graph.forward(
         p, model.spec, resize.normalize_vgg(x), jnp.bfloat16))
     out = timed("net forward (bf16)", f_net, model.params, img)
-    f_res = jax.jit(lambda o: resize.resize_bicubic(
-        o[..., :num_parts], (net_h, net_w)))
-    merged = timed("resize 8x (parts)", f_res, out)
-    f_nms = jax.jit(lambda m: nms.nms(m, 0.05, 127))
+    f_res = jax.jit(lambda o: resize.resize_bicubic(o, (net_h, net_w)))
+    merged = timed("resize 8x (all channels)", f_res, out)
+    f_nms = jax.jit(lambda m: nms.nms(m[..., :num_parts], 0.05, 127))
     peaks = timed("nms", f_nms, merged)
-    f_paf = jax.jit(lambda o, pk: paf.paf_scores_multiscale(
-        (o,), (1.0,), (net_h, net_w), pk, pairs, map_idx, 0.05, 0.95, 0.05))
-    timed("paf scores (multiscale)", f_paf, out, peaks)
+    f_paf = jax.jit(lambda m, pk: paf.paf_scores(
+        m, pk, pairs, map_idx, 0.05, 0.95, 0.05))
+    timed("paf scores", f_paf, merged, peaks)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 These are deliberately slow, loop-based transliterations of the algorithm
 descriptions (cited per function) used as ground truth for the vectorized
-TPU ops.  They live in tests/ only.
+device ops.  They live in tests/ only.
 """
 
 from __future__ import annotations

@@ -108,6 +108,27 @@ class TestShardedInference:
         np.testing.assert_allclose(np.asarray(peaks), np.asarray(peaks1),
                                    atol=1e-4)
 
+    @pytest.mark.parametrize("max_count,k", [(3, 8), (20, 32), (100, 127)])
+    def test_fetch_trims_scores_to_bucket(self, max_count, k):
+        """fetch() returns the pair scores cut to the smallest bucket that
+        covers the batch's largest per-part peak count (the full matrix
+        above the largest bucket), and the peaks unchanged."""
+        from openpose_tpu.parallel.inference import ShardedPoseInference
+        from openpose_tpu.parallel import mesh as mesh_lib
+        model = zoo.load_pose_model(PoseModel.MPI_15_4)
+        inf = ShardedPoseInference(
+            model, mesh_lib.make_mesh(jax.devices()[:1]), net_hw=(64, 64),
+            max_peaks=127)
+        rng = np.random.RandomState(0)
+        peaks = np.zeros((2, 15, 128, 3), np.float32)
+        peaks[:, :, 0, 0] = rng.randint(0, max_count + 1, (2, 15))
+        peaks[1, 4, 0, 0] = max_count
+        scores = rng.uniform(-1, 1, (2, 14, 127, 127)).astype(np.float32)
+        got_peaks, got_scores = inf.fetch(jnp.asarray(peaks),
+                                          jnp.asarray(scores))
+        np.testing.assert_array_equal(got_peaks, peaks)
+        np.testing.assert_array_equal(got_scores, scores[:, :, :k, :k])
+
     def test_data_parallel_is_collective_free(self):
         """Scaling guarantee: the data-parallel inference program contains
         zero cross-device collectives (throughput scales linearly with

@@ -1,6 +1,6 @@
 """Multi-process "fake cluster" test: jax.distributed over 2 CPU processes.
 
-The reference has no distributed runtime (SURVEY §5.8); the TPU framework
+The reference has no distributed runtime (SURVEY §5.8); this framework
 scales over hosts, so we validate the multi-host path the way SURVEY §4
 prescribes: two local processes, each with 4 virtual CPU devices, running
 the SAME sharded training step over the global 8-device mesh.

@@ -1,4 +1,4 @@
-"""Kernel-level parity tests: vectorized TPU ops vs scalar reference oracles."""
+"""Kernel-level parity tests: vectorized device ops vs scalar reference oracles."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -260,107 +260,13 @@ class TestAssembly:
         assert kp.shape[0] == 0
 
 
-class TestPafPallasKernel:
-    def test_interpret_matches_tap_matrix(self):
-        """Pallas sampling kernel (interpret mode) == XLA tap-matrix path."""
-        import jax
-        from openpose_tpu.ops.paf_pallas import sample_bicubic_pallas
-        rng = np.random.RandomState(11)
-        p, hs, ws = 3, 12, 16
-        scale_h = scale_w = 8.0
-        th, tw = hs * 8, ws * 8
-        low = rng.uniform(-1, 1, (p, 2, hs, ws)).astype(np.float32)
-        s = 700
-        my = rng.randint(0, th, (p, s)).astype(np.int32)
-        mx = rng.randint(0, tw, (p, s)).astype(np.int32)
-        vx, vy = sample_bicubic_pallas(
-            jnp.asarray(low), jnp.asarray(my), jnp.asarray(mx),
-            scale_h, scale_w, interpret=True,
-            precision=jax.lax.Precision.HIGHEST)
-        wrow = np.asarray(paf._tap_matrix(jnp.asarray(my), hs, scale_h))
-        wcol = np.asarray(paf._tap_matrix(jnp.asarray(mx), ws, scale_w))
-        want_x = np.einsum("psh,phw,psw->ps", wrow, low[:, 0], wcol)
-        want_y = np.einsum("psh,phw,psw->ps", wrow, low[:, 1], wcol)
-        np.testing.assert_allclose(np.asarray(vx), want_x, rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(vy), want_y, rtol=1e-4, atol=1e-5)
+class TestPafProduction:
+    """The production scoring chain — upsample_merge of every channel, then
+    paf_scores gathers — against the scalar oracles: cubic_resize_oracle
+    (resizeAndMerge) feeding paf_score_oracle (pafScoreKernel)."""
 
-
-class TestPafFastTier:
-    def _scene(self, counts, max_peaks):
-        rng = np.random.RandomState(13)
-        n_parts = len(counts) - 1
-        c = n_parts + 1 + 4
-        hs, ws = 10, 14
-        th, tw = hs * 8, ws * 8
-        src = rng.uniform(-1, 1, (1, hs, ws, c)).astype(np.float32)
-        peaks = np.zeros((1, n_parts + 1, max_peaks + 1, 3), np.float32)
-        for part, cnt in enumerate(counts):
-            peaks[0, part, 0, 0] = cnt
-            for k in range(cnt):
-                peaks[0, part, k + 1] = (rng.uniform(1, tw - 2),
-                                         rng.uniform(1, th - 2),
-                                         rng.uniform(0.1, 1.0))
-        pairs = np.array([[0, 1], [1, 2]], np.int32)
-        map_idx = np.array([[4, 5], [6, 7]], np.int32)
-        return src, peaks, pairs, map_idx, (th, tw)
-
-    @pytest.mark.parametrize("counts", [[3, 2, 4, 0],      # fast branch
-                                        [6, 2, 4, 0]])     # slow branch
-    def test_tiered_equals_untied(self, counts):
-        src, peaks, pairs, map_idx, hw = self._scene(counts, max_peaks=12)
-        args = ((jnp.asarray(src),), (1.0,), hw, jnp.asarray(peaks),
-                jnp.asarray(pairs), jnp.asarray(map_idx), 0.05, 0.5, 0.05)
-        want = np.asarray(paf.paf_scores_multiscale(*args, fast_peaks=0))
-        got = np.asarray(paf.paf_scores_multiscale(*args, fast_peaks=4))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-
-    @pytest.mark.parametrize("counts", [[2, 1, 2, 0],      # first tier
-                                        [5, 2, 4, 0],      # middle tier
-                                        [9, 2, 4, 0]])     # falls through
-    def test_tier_ladder(self, counts):
-        src, peaks, pairs, map_idx, hw = self._scene(counts, max_peaks=12)
-        args = ((jnp.asarray(src),), (1.0,), hw, jnp.asarray(peaks),
-                jnp.asarray(pairs), jnp.asarray(map_idx), 0.05, 0.5, 0.05)
-        want = np.asarray(paf.paf_scores_multiscale(*args, fast_peaks=0))
-        got = np.asarray(paf.paf_scores_multiscale(*args, fast_peaks=(3, 6)))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-
-
-class TestPafMultiscale:
-    def test_matches_fullres_backend(self):
-        """Analytic low-res sampling == sampling the materialized upsample."""
-        rng = np.random.RandomState(7)
-        n_parts, max_peaks = 2, 6
-        c = n_parts + 1 + 4
-        hs, ws = 12, 16
-        th, tw = hs * 8, ws * 8
-        sources = [rng.uniform(-1, 1, (1, hs, ws, c)).astype(np.float32),
-                   rng.uniform(-1, 1, (1, 8, 12, c)).astype(np.float32)]
-        ratios = (1.0, 0.71)
-        merged = np.asarray(resize.upsample_merge(
-            [s for s in sources], list(ratios), (th, tw)))
-        peaks = np.zeros((1, n_parts + 1, max_peaks + 1, 3), np.float32)
-        for part, cnt in enumerate([4, 3, 0]):
-            peaks[0, part, 0, 0] = cnt
-            for k in range(cnt):
-                peaks[0, part, k + 1] = (rng.uniform(1, tw - 2),
-                                         rng.uniform(1, th - 2),
-                                         rng.uniform(0.1, 1.0))
-        pairs = np.array([[0, 1], [1, 0]], np.int32)
-        map_idx = np.array([[3, 4], [5, 6]], np.int32)
-        want = np.asarray(paf.paf_scores(
-            merged, peaks, pairs, map_idx, 0.05, 0.5, 0.05))
-        got = np.asarray(paf.paf_scores_multiscale(
-            tuple(jnp.asarray(s) for s in sources), ratios, (th, tw),
-            jnp.asarray(peaks), jnp.asarray(pairs), jnp.asarray(map_idx),
-            0.05, 0.5, 0.05))
-        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
-
-
-class TestPafFused:
-    """Fused pallas kernel (geometry+sampling+finalize) == XLA backend."""
-
-    def _scene(self, counts, max_peaks, seed=3, near_pair=False):
+    def _scene(self, counts, max_peaks, seed=3, near_pair=False,
+               border=False, zero_length=False):
         rng = np.random.RandomState(seed)
         n_parts = len(counts)
         c = n_parts + 1 + 6
@@ -378,43 +284,68 @@ class TestPafFused:
         if near_pair:
             # close-keypoint fallback: |AB| < sqrt(W*H)/150
             peaks[0, 1, 1, :2] = peaks[0, 0, 1, :2] + 0.3
+        if border:
+            # samples at and beyond the map edge clamp to it
+            peaks[0, 0, 1, :2] = (0.0, 0.0)
+            peaks[0, 1, 1, :2] = (tw - 0.6, th - 0.6)
+            peaks[1, 1, 2, :2] = (tw - 0.6, 0.0)
+        if zero_length:
+            # A == B: no direction, the pair scores -1
+            peaks[0, 1, 1, :2] = peaks[0, 0, 1, :2]
         pairs = np.array([[0, 1], [1, 2], [2, 0]], np.int32)
         map_idx = np.array([[n_parts + 1, n_parts + 2],
                             [n_parts + 3, n_parts + 4],
                             [n_parts + 1, n_parts + 4]], np.int32)
         return src, peaks, pairs, map_idx, (th, tw)
 
-    @pytest.mark.parametrize("counts,near", [
-        ([4, 3, 2], False),          # typical sparse
-        ([4, 3, 2], True),           # close-keypoint fallback branch
-        ([12, 12, 12], False),       # saturated (== max_peaks)
-        ([0, 3, 2], False),          # empty part
-    ])
-    def test_fused_matches_xla(self, counts, near):
-        import jax
-        src, peaks, pairs, map_idx, hw = self._scene(counts, 12,
-                                                     near_pair=near)
-        args = ((jnp.asarray(src),), (1.0,), hw, jnp.asarray(peaks),
-                jnp.asarray(pairs), jnp.asarray(map_idx), 0.05, 0.5, 0.05)
-        want = np.asarray(paf.paf_scores_multiscale(
-            *args, fast_peaks=0, use_pallas=False))
-        got = np.asarray(paf.paf_scores_multiscale(
-            *args, fast_peaks=0, use_pallas=True,
-            precision=jax.lax.Precision.HIGHEST))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    @staticmethod
+    def _check(sources, ratios, hw, peaks, pairs, map_idx):
+        merged = resize.upsample_merge(
+            [jnp.asarray(s) for s in sources], list(ratios), hw)
+        got = np.asarray(paf.paf_scores(
+            merged, jnp.asarray(peaks), jnp.asarray(pairs),
+            jnp.asarray(map_idx), 0.05, 0.5, 0.05))
+        th, tw = hw
+        rel = [r / ratios[0] for r in ratios]
+        for b in range(peaks.shape[0]):
+            maps = {}
+            for ch in np.unique(map_idx):
+                acc = np.zeros((th, tw), np.float32)
+                for s, r in zip(sources, rel):
+                    sh, sw = s.shape[1], s.shape[2]
+                    acc += oracle.cubic_resize_oracle(
+                        s[b, :, :, ch], th, tw,
+                        scale_h=(th / sources[0].shape[1]) / r,
+                        scale_w=(tw / sources[0].shape[2]) / r)
+                maps[ch] = acc / len(sources)
+            for pi, (pa, pb) in enumerate(pairs):
+                na, nb = int(peaks[b, pa, 0, 0]), int(peaks[b, pb, 0, 0])
+                want = np.full(got.shape[2:], -1.0, np.float32)
+                for i in range(na):
+                    for j in range(nb):
+                        want[i, j] = oracle.paf_score_oracle(
+                            peaks[b, pa, i + 1, 0], peaks[b, pa, i + 1, 1],
+                            peaks[b, pb, j + 1, 0], peaks[b, pb, j + 1, 1],
+                            maps[map_idx[pi, 0]], maps[map_idx[pi, 1]],
+                            0.05, 0.5, 0.05)
+                np.testing.assert_allclose(got[b, pi], want, rtol=2e-3,
+                                           atol=2e-4)
 
-    def test_fused_multiscale(self):
-        import jax
+    @pytest.mark.parametrize("counts,kw", [
+        ([4, 3, 2], {}),                          # typical sparse
+        ([4, 3, 2], {"near_pair": True}),         # close-keypoint fallback
+        ([12, 12, 12], {}),                       # saturated (== max_peaks)
+        ([0, 3, 2], {}),                          # empty part
+        ([4, 3, 2], {"border": True}),            # samples clamp at the edge
+        ([4, 3, 2], {"zero_length": True}),       # A == B scores -1
+    ])
+    def test_matches_oracle(self, counts, kw):
+        src, peaks, pairs, map_idx, hw = self._scene(counts, 12, **kw)
+        self._check((src,), (1.0,), hw, peaks, pairs, map_idx)
+
+    def test_two_scales_match_oracle(self):
         rng = np.random.RandomState(11)
         src, peaks, pairs, map_idx, hw = self._scene([5, 4, 3], 8)
         src2 = rng.uniform(-1, 1, (2, 8, 11, src.shape[-1])) \
             .astype(np.float32)
-        args = ((jnp.asarray(src), jnp.asarray(src2)), (1.0, 0.73), hw,
-                jnp.asarray(peaks), jnp.asarray(pairs),
-                jnp.asarray(map_idx), 0.05, 0.5, 0.05)
-        want = np.asarray(paf.paf_scores_multiscale(
-            *args, fast_peaks=0, use_pallas=False))
-        got = np.asarray(paf.paf_scores_multiscale(
-            *args, fast_peaks=0, use_pallas=True,
-            precision=jax.lax.Precision.HIGHEST))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        self._check((src, src2), (1.0, 0.73), hw, peaks, pairs, map_idx)
